@@ -1,13 +1,14 @@
-"""dentist_tpu — a TPU-native genome assembly gap-closing framework.
+"""dentist_tpu — a genome assembly gap-closing framework on JAX.
 
 A from-scratch re-design of the capabilities of DENTIST
 (a-ludi/dentist: close assembly gaps using long reads, "with focus on
-correctness") as a single in-process JAX/Pallas pipeline.  Where the
+correctness") as a single in-process JAX pipeline.  Where the
 reference orchestrates 38 external Dazzler C binaries via a 1,537-line
 Snakemake DAG, this framework runs every stage — k-mer seeded local
 alignment, repeat/tandem/low-complexity masking, pile-up collection,
 intrinsic-QV + windowed consensus, and gap-closed assembly emission — as
-batched TPU computations over a 2-bit-packed, HBM-resident sequence index.
+batched device computations (XLA, run on an NVIDIA GPU) over 2-bit-packed,
+device-resident sequence stores.
 
 Layout (see SURVEY.md for the reference layer map this re-expresses):
 
@@ -16,7 +17,7 @@ Layout (see SURVEY.md for the reference layer map this re-expresses):
 - :mod:`dentist_tpu.io`       — FASTA/BED/AGP parsing and emission, 2-bit
   packing, Dazzler ``.las``/mask-format import/export edges (reference:
   ``source/dentist/dazzler.d``, ``util/fasta.d``).
-- :mod:`dentist_tpu.ops`      — the TPU compute path: seeding, banded
+- :mod:`dentist_tpu.ops`      — the device compute path: seeding, banded
   trace-point alignment, chaining, masking and consensus kernels
   (replaces daligner/damapper/datander/DBdust/daccord).
 - :mod:`dentist_tpu.models`   — the domain model and pipeline stages:

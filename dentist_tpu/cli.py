@@ -978,7 +978,7 @@ def cmd_pipeline(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dentist-tpu",
-        description="TPU-native genome assembly gap closer (capabilities of DENTIST)",
+        description="Genome assembly gap closer on JAX (capabilities of DENTIST)",
     )
     p.add_argument("--version", action="version", version=__version__)
     p.add_argument("--commands", action="store_true", help="list sub-commands")
@@ -1134,10 +1134,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    from .utils.cache import enable_compile_cache, warm_device
+    from .utils.cache import enable_compile_cache
 
     enable_compile_cache()
-    warm_device()
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and not argv[0].startswith("-"):
         argv[0] = resolve_command(argv[0])

@@ -509,9 +509,9 @@ def process_pile_ups(
             # containment fallback: batch failed — run pile-ups one by one.
             # The fallback hides order-of-magnitude perf cliffs, so strict
             # mode (tests) re-raises instead.
+            log_json("warn", event="consensusBatchFailed", error=str(exc))
             if os.environ.get("DENTIST_TPU_STRICT"):
                 raise
-            log_json("warn", event="consensusBatchFailed", error=str(exc))
             conss = []
             for k in pending:
                 try:

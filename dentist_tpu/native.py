@@ -7,6 +7,8 @@ locate, plus 2-bit sequence packing (the Dazzler ``.bps`` layout).
 
 The library auto-builds on first use (``make -C native``); every entry
 point has a NumPy fallback so the framework works without a compiler.
+Each fallback is logged (``nativeBuildFailed``, ``nativeLoadFailed``,
+``nativeSymbolMissing``), because the NumPy paths are far slower.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ _LIB_PATH = os.environ.get(
     "DENTIST_TPU_NATIVE", os.path.join(_NATIVE_DIR, "libdentistnative.so"))
 _lib = None
 _tried = False
+#: optional entry points; without them seeding runs its NumPy paths
+_SEEDING_SYMBOLS = ("dentist_seed_lookup", "dentist_seed_lookup_stream",
+                    "dentist_seed_merge")
 
 
 def _load():
@@ -49,6 +54,10 @@ def _load():
     except OSError as exc:
         log_json("warn", event="nativeLoadFailed", error=str(exc))
         return None
+    missing = [s for s in _SEEDING_SYMBOLS if not hasattr(lib, s)]
+    if missing:  # a stale library: seeding falls back to NumPy
+        log_json("warn", event="nativeSymbolMissing", symbols=missing,
+                 path=_LIB_PATH)
     lib.dentist_sa_build.restype = ctypes.c_void_p
     lib.dentist_sa_build.argtypes = [ctypes.c_char_p, ctypes.c_int64]
     lib.dentist_sa_locate.restype = ctypes.c_int64

@@ -7,7 +7,7 @@ Replaces daligner/damapper's k-mer (k=14) seed detection
   contig store or a read store).  Its k-mers are encoded as 28-bit ints
   and sorted once — a *sorted-array index* rather than a hash table, so
   lookup is ``searchsorted`` (binary search), which vectorizes on both
-  NumPy and TPU (``jnp.searchsorted`` = batched binary-search gathers).
+  NumPy and device (``jnp.searchsorted`` = batched binary-search gathers).
 - Query k-mers probe the sorted array; over-represented k-mers
   (``max_occ``) are dropped, which both bounds work and suppresses
   repeat-induced seed storms (daligner's masking serves this role).

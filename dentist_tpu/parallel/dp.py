@@ -1,6 +1,6 @@
 """Data-parallel execution of the production alignment pipeline over a mesh.
 
-The framework's scaling model (SURVEY §2.4 "TPU-native equivalent"):
+The framework's scaling model (SURVEY §2.4, device equivalent):
 
 - the sorted k-mer index of the assembly is replicated on every device
   (the reference replicates DB blocks per cluster node,
@@ -37,8 +37,8 @@ def dispatch_workers(default: int) -> int:
 
     A multi-process mesh requires every process to enqueue collectives
     in the same order — concurrent launch threads would race and corrupt
-    the gloo/ICI streams (observed as ``op.preamble.length`` mismatches)
-    — so launches serialize through one FIFO worker.  Single-process
+    the collective streams (observed with gloo as ``op.preamble.length``
+    mismatches) — so launches serialize through one FIFO worker.  Single-process
     meshes keep ``default`` workers to overlap host staging with device
     compute."""
     return 1 if jax.process_count() > 1 else default
@@ -54,8 +54,8 @@ def stage_global(mesh, spec, arr):
     assembled from per-process local shards via
     ``jax.make_array_from_callback`` — each host uploads only its own
     rows, and the allgathered outputs come back fully replicated (the
-    ICI/DCN collective replaces the reference's shared-filesystem merge,
-    SURVEY §2.4 communication-backend row).
+    collective replaces the reference's shared-filesystem merge, SURVEY
+    §2.4 communication-backend row).
     """
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -74,13 +74,13 @@ def init_distributed() -> bool:
     """Join a multi-host JAX cluster when the environment describes one.
 
     The reference scales across hosts via Snakemake cluster jobs + file
-    merges (``snakemake/Snakefile`` cluster profiles); the TPU-native
-    equivalent is one process per host in a ``jax.distributed`` cluster,
-    after which ``jax.devices()`` spans every host's chips and the same
-    ``dp`` mesh + ``all_gather`` collectives run unchanged over ICI/DCN.
+    merges (``snakemake/Snakefile`` cluster profiles); the equivalent
+    here is one process per host in a ``jax.distributed`` cluster, after
+    which ``jax.devices()`` spans every host's GPUs and the same ``dp``
+    mesh + ``all_gather`` collectives run unchanged across hosts.
 
-    Controlled by standard env vars (set by the TPU pod runtime or
-    explicitly): ``DENTIST_TPU_COORDINATOR`` (host:port),
+    Controlled by environment variables set by the launcher:
+    ``DENTIST_TPU_COORDINATOR`` (host:port),
     ``DENTIST_TPU_NUM_PROCESSES`` and ``DENTIST_TPU_PROCESS_ID``.
     Returns True when running distributed.
     """

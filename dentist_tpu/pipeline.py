@@ -66,7 +66,16 @@ def _chain_spans(las, chains):
             las.b_begin[f].astype(np.int64), las.b_end[g].astype(np.int64),
             aid, bid)
 
-__all__ = ["PipelineConfig", "run_pipeline"]
+__all__ = ["PipelineConfig", "run_pipeline", "STAGE_KEYS"]
+
+#: the pipeline's stages and the ``utils.log.STAGE_SECONDS`` key each
+#: one's wall-clock is summed under
+STAGE_KEYS = {
+    "masks": "dentist_tpu.pipeline.masks_for",
+    "collect": "stage.collect", "process": "stage.process",
+    "output": "stage.output",
+    "validation": "dentist_tpu.pipeline._validation_pass",
+}
 
 
 @dataclass
@@ -99,10 +108,8 @@ class PipelineConfig:
 @trace_execution
 def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None = None):
     from .ops.consensus import warm_shapes
-    from .utils.cache import warm_device
 
-    warm_device()  # absorb the device's first-dispatch tax during IO
-    warm_shapes()  # preload consensus programs behind IO + mapping
+    warm_shapes()  # compile consensus programs behind IO + mapping
     cfg = cfg or PipelineConfig()
     if cfg.workdir:  # persist the event log for lost-gaps analysis
         from .utils.log import tee_log_file

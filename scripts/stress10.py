@@ -16,18 +16,17 @@ import numpy as np  # noqa: E402
 
 
 def main():
-    from dentist_tpu.utils.cache import enable_compile_cache, warm_device
+    from dentist_tpu.utils.cache import enable_compile_cache
     from dentist_tpu.utils.log import set_log_level
 
     enable_compile_cache()
-    warm_device()
     if "--timings" in sys.argv:
         set_log_level("diagnostic")
 
     from dentist_tpu.eval.check_results import check_results
     from dentist_tpu.io.fasta import FastaRecord
     from dentist_tpu.models.sequences import split_scaffolds
-    from dentist_tpu.pipeline import PipelineConfig, close_gaps
+    from dentist_tpu.pipeline import STAGE_KEYS, PipelineConfig, close_gaps
     from dentist_tpu.sim.genome import insert_repeats, random_genome
     from dentist_tpu.sim.partial import build_partial_assembly, random_gaps
     from dentist_tpu.sim.reads import simulate_reads
@@ -69,14 +68,8 @@ def main():
     import resource
 
     peak_rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    stage_seconds = {
-        "masks": round(STAGE_SECONDS.get("dentist_tpu.pipeline.masks_for", 0.0), 1),
-        "collect": round(STAGE_SECONDS.get("stage.collect", 0.0), 1),
-        "process": round(STAGE_SECONDS.get("stage.process", 0.0), 1),
-        "output": round(STAGE_SECONDS.get("stage.output", 0.0), 1),
-        "validation": round(
-            STAGE_SECONDS.get("dentist_tpu.pipeline._validation_pass", 0.0), 1),
-    }
+    stage_seconds = {name: round(STAGE_SECONDS.get(key, 0.0), 1)
+                     for name, key in STAGE_KEYS.items()}
 
     from dentist_tpu.io.fasta import seq_to_codes
 

@@ -1,7 +1,7 @@
 """Worker process for the multi-host test (see test_multihost.py).
 
 Joins a 2-process ``jax.distributed`` CPU cluster through the
-framework's own ``init_distributed`` (the TPU-pod entry point,
+framework's own ``init_distributed`` (the multi-host entry point,
 ``parallel/dp.py``), builds the global 8-device mesh, runs the
 PRODUCTION mapper and consensus sharded over it, and asserts both equal
 this process's own single-device results — the multi-host analogue of

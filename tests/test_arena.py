@@ -4,7 +4,8 @@ The round-5 review found the failure modes these tests pin down:
 bump-allocation must hand out non-overlapping regions whose contents
 read back exactly; a reset (arena full) must bump the epoch so offset
 holders re-upload; a store too large for an empty arena must raise
-(callers fall back to host-window dispatch).
+(callers fall back to host-window dispatch, logged as ``arenaFallback``,
+with identical results).
 """
 
 import numpy as np
@@ -64,3 +65,51 @@ def test_oversized_store_raises(small_arena):
     big = np.zeros(4 * B._ARENA_CHUNK, np.uint8)
     with pytest.raises(MemoryError):
         a.offset_of(big)
+
+
+def _no_store_fits(monkeypatch, arena):
+    """Route every resident upload to ``arena`` with room for no store."""
+    monkeypatch.setattr(B, "ARENA", arena)
+    monkeypatch.setattr(B, "_arena_capacity",
+                        lambda: 2 * B.RESIDENT_PAD + B._ARENA_CHUNK - 1)
+
+
+def test_consensus_arena_fallback_is_logged_and_exact(small_arena, monkeypatch):
+    import dentist_tpu.ops.consensus as C
+    from dentist_tpu.sim.reads import _mutate
+
+    rng = np.random.default_rng(7)
+    truth = rng.integers(0, 4, 700).astype(np.uint8)
+    reads = [_mutate(truth, rng, 0.1) for _ in range(7)]
+    ref = C.consensus_batch([reads])[0]
+    events = []
+    monkeypatch.setattr(C, "log_json", lambda level, **kw: events.append(kw))
+    _no_store_fits(monkeypatch, small_arena)
+    got = C.consensus_batch([reads])[0]
+    assert [(e["event"], e["stage"]) for e in events] == [
+        ("arenaFallback", "consensus")]
+    assert np.array_equal(got.sequence, ref.sequence)
+    assert np.array_equal(got.win_diffs, ref.win_diffs)
+
+
+def test_extension_arena_fallback_is_logged_and_exact(small_arena,
+                                                      monkeypatch):
+    import dentist_tpu.ops.aligner as A
+    from dentist_tpu.sim.genome import random_genome
+    from dentist_tpu.sim.reads import simulate_reads
+
+    genome = random_genome(30_000, seed=3)
+    reads, _ = simulate_reads([genome], coverage=2, mean_length=5000,
+                              sd_length=1000, error=0.1, seed=4)
+    target = (genome, np.array([0]), np.array([len(genome)]))
+    ref = A.align_store_pair(*target, reads)
+    events = []
+    monkeypatch.setattr(A, "log_json", lambda level, **kw: events.append(kw))
+    _no_store_fits(monkeypatch, small_arena)
+    got = A.align_store_pair(*target, reads)
+    fallbacks = [e for e in events if e.get("event") == "arenaFallback"]
+    assert fallbacks and all(e["stage"] == "extension" for e in fallbacks)
+    assert len(got) == len(ref) > 0
+    for f in ("a_id", "b_id", "a_begin", "a_end", "b_begin", "b_end",
+              "diffs", "trace_diffs", "trace_b_adv"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f

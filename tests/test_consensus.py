@@ -188,7 +188,7 @@ def test_rank_reference_reads_orders_by_quality():
 
 
 def test_corrupted_template_read_recovers_via_retry():
-    """VERDICT #4: a garbage median-length template must not sink the
+    """A garbage median-length template must not sink the
     pile-up — QV-ranked retry converges byte-exact."""
     from dentist_tpu.ops.consensus import rank_reference_reads
 

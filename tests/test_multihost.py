@@ -4,7 +4,7 @@ BASELINE.md demands scaling evidence at "1 chip / 1 host / ≥ 2 hosts";
 this validates the ≥2-host axis the way the driver validates multi-chip:
 two REAL processes (4 virtual CPU devices each) join a cluster through
 ``dentist_tpu.parallel.dp.init_distributed`` — the same entry point a
-TPU pod uses — and run the production mapper + consensus sharded over
+multi-host GPU cluster uses — and run the production mapper + consensus sharded over
 the global mesh, asserting bit-equality with single-device results in
 each process (see ``_multihost_worker.py``).
 """
